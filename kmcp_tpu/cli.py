@@ -19,7 +19,7 @@ def _int_list(s: str) -> list[int]:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="kmcp-tpu",
-        description="TPU-native metagenomic search and profiling "
+        description="metagenomic search and profiling on JAX "
         "(KMCP-capability re-implementation)",
     )
     p.add_argument("--version", action="version", version=__version__)
@@ -70,8 +70,8 @@ def build_parser() -> argparse.ArgumentParser:
     i.add_argument("--force", action="store_true")
     i.add_argument(
         "--tpu-native", action="store_true",
-        help="wide-block layout optimized for TPU gather (not bit-compatible "
-        "with reference block partitioning)",
+        help="wide-block layout for the device gather (4096-target "
+        "blocks; not bit-compatible with reference block partitioning)",
     )
     i.add_argument("--native-block-targets", type=int, default=4096)
     i.add_argument(

@@ -233,8 +233,8 @@ def _union_screen_bits(targets, fpr_u: float = SCREEN_FPR_U) -> int:
     build_block_bits' single pass over the kset files.
 
     Rounded UP to a power of two (<= 2x the designed size): the device
-    hash kernel's screen modulus then lowers to a single AND instead
-    of a ~150-op fold-and-double chain (pallas_hash.make_mod_pair),
+    hash's screen modulus then lowers to a single AND instead of a
+    fold-and-double chain (device_hash.make_mod_pair),
     and the oversize only LOWERS the screen's false-positive rate —
     the stored fpr is the exact value for the rounded size, so the
     theta band tightens to match on both backends."""

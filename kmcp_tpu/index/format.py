@@ -1,11 +1,11 @@
 """On-disk database format: bit-sliced Bloom signature index.
 
-TPU-first re-design of the reference's ``.uniki`` block files
+Device-first re-design of the reference's ``.uniki`` block files
 (/root/reference/kmcp/cmd/index/serialization.go): instead of byte-wide
 row-interleaved 8-target groups, each block stores one dense uint32 bit
 matrix ``[num_sigs, num_words]`` (target t -> word t//32, bit t%32,
-LSB-first) saved as a raw ``.npy`` so it can be mmapped on host and DMA'd
-to HBM unchanged.  Per-block metadata (names, genome sizes, packed chunk
+LSB-first) saved as a raw ``.npy`` so it can be mmapped on host and
+copied to device memory unchanged.  Per-block metadata (names, genome sizes, packed chunk
 indices, per-target k-mer counts) lives in a JSON sidecar, DB-level
 parameters in ``db.json`` (the analog of ``__db.yml``,
 /root/reference/kmcp/cmd/util-db-info.go:46-79).

@@ -12,7 +12,7 @@ NOT a code port; byte layout from:
   (flat YAML, blocks under an ``R001`` subdirectory, index.go:637,1377)
 
 This gives bidirectional interop: a reference-built database loads
-straight into the search engine (bit columns transposed to the TPU
+straight into the search engine (bit columns transposed to the device
 layout on load), and our databases export to the reference layout so the
 reference binary could search them.  With no Go toolchain and no binary
 fixtures shipped in the reference repo, round-trip equality against our

@@ -7,7 +7,7 @@ column is rewritten, query-ID consistency and per-file query counts are
 verified, and the '#' stat lines are regenerated.
 
 This is the offline "reduce" of the reference's cluster sharding story;
-the multi-host TPU path does the same reduction with on-ICI collectives
+the multi-device path does the same reduction with collectives
 (kmcp_tpu/parallel/sharding.py), but the file-level merge remains for
 pipeline compatibility.
 """

@@ -1,29 +1,27 @@
 """The two-pass screened device search: pass 1 counts a packed
 per-block union screen (one 32-block word per k-mer), pass 2 gathers
-only each read's active blocks through the block-stationary Mosaic pair
-kernel (`pallas_count`).  This is the wide-target-count regime — the
-device analog of `index --block-screen` union screens
-(/root/reference/kmcp/cmd/util-db-search.go:939-964 fans queries to
-block indices; here the screen prunes the fan-out on chip).
+and counts only each read's active blocks.  This is the
+wide-target-count regime — the device analog of `index --block-screen`
+union screens (/root/reference/kmcp/cmd/util-db-search.go:939-964 fans
+queries to block indices; here the screen prunes the fan-out on the
+device).
 
-Split out of device.py (round 5) purely for reviewability; all names
-re-export through `kmcp_tpu.search.device` — no behavior change.
+All names re-export through `kmcp_tpu.search.device`.
 """
 
 from __future__ import annotations
 
 import functools
-import os
 
 import numpy as np
 
 from .device_step import (
-    _csa,
-    _unpack_count,
-    _unpack_sum,
     _dedup_value_planes,
     _merge_segments,
     _nonzero_asc,
+    _unpack_count,
+    aux_dtype,
+    clip_aux,
 )
 
 def _screen_geometry(db):
@@ -82,113 +80,6 @@ def build_packed_union(db, n_blocks: int):
     return U, nb_u, np.asarray(fprs, dtype=np.float64)
 
 
-def _build_u_digit(loc_bk, S_pad: int):
-    """Row-multiplicity matrix U bf16 [B, S_pad] from k-mer locations
-    [B, K] (sentinel rows included — their bits are zero): U[b, s] =
-    #windows of read b hashing to Bloom row s.  Built as a digit
-    one-hot product on the MXU — U[b, hi*DL + lo] = sum_i eh[b, hi, i]
-    * el[b, i, lo] with s = hi*DL + lo — which beats both XLA scatter
-    and compare-iota ~2.5x at B=4096 (probe_group_gemm).  Exact: bf16
-    represents integers <= 256 and multiplicity <= K <= the dedup
-    threshold (256)."""
-    import jax
-    import jax.numpy as jnp
-
-    assert S_pad % 64 == 0, S_pad
-    DL = S_pad // 64
-    hi = (loc_bk // DL).astype(jnp.int32)
-    lo = (loc_bk % DL).astype(jnp.int32)
-    eh = (
-        hi[:, None, :] == jnp.arange(64, dtype=jnp.int32)[None, :, None]
-    ).astype(jnp.bfloat16)
-    el = (
-        lo[:, :, None] == jnp.arange(DL, dtype=jnp.int32)[None, None, :]
-    ).astype(jnp.bfloat16)
-    u = jax.lax.dot_general(
-        eh, el, (((2,), (1,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32,
-    )
-    return u.reshape(loc_bk.shape[0], S_pad).astype(jnp.bfloat16)
-
-
-def _gemm_geometry(s_block: int, t_block: int):
-    """(S_pad, T_t) for the grouped-GEMM pass 2, or None when the
-    kernel's VMEM budget cannot hold a [S_pad, T_t] slab pair plus the
-    U tile (large-s_block DBs keep the pair kernel)."""
-    if t_block != 4096:
-        return None
-    S_pad = -(-(s_block + 1) // 128) * 128
-    for T_t in (512, 256):
-        # slab i8 + slab bf16 + double-buffered U tile + out tile
-        vmem = S_pad * T_t * 3 + 2 * (128 * S_pad * 2 + 128 * T_t * 4)
-        if vmem <= 12 << 20:
-            return S_pad, T_t
-    return None
-
-
-def _gemm_pc_mode(t_block: int, s_block: int, n_blocks: int,
-                  dedup_threshold: int):
-    """'gemm' | 'interpret' | None: whether the grouped-GEMM Pallas
-    pass 2 (pallas_count.make_pallas_group_count) serves the screened
-    search.  Needs the tpu-native 4096-target blocks, VMEM room for
-    the [S_pad, T_t] slabs (_gemm_geometry) and multiplicities that
-    bf16 holds exactly (dedup threshold <= 256).
-    KMCP_TPU_GEMM_PAIR=0 disables, =1 forces, =interpret forces the
-    Mosaic interpreter; KMCP_TPU_PALLAS_COUNT=0 is the global kill
-    switch; otherwise on for the TPU backend."""
-    if _gemm_geometry(s_block, t_block) is None:
-        return None
-    if dedup_threshold > 256:
-        return None  # bf16 multiplicity exactness bound
-    if os.environ.get("KMCP_TPU_PALLAS_COUNT", "").lower() in ("0", "off"):
-        return None
-    env = os.environ.get("KMCP_TPU_GEMM_PAIR", "").lower()
-    if env in ("0", "off"):
-        return None
-    if env == "interpret":
-        return "interpret"
-    if env != "1" and n_blocks > 64:
-        # per-block tile padding (~nb*128 wasted GEMM rows) overtakes
-        # the MXU win at high block counts: measured 119k vs the pair
-        # kernel's 160k reads/s at nb=128 (524k targets); at nb=32 the
-        # GEMM ties single-end and wins paired by ~18%
-        return None
-    import jax
-
-    if env == "1" or jax.default_backend() == "tpu":
-        return "gemm"
-    return None
-
-
-def _pair_pc_mode(t_block: int, s_block: int, n_blocks: int):
-    """'pair' | 'interpret' | None: whether the block-stationary Pallas
-    pair kernel (pallas_count.make_pallas_pair_count) replaces the XLA
-    row gather in the screened pass-2.  Requires the tpu-native block
-    width (128 words = 4096 targets/block) and VMEM room for one block
-    slab (~512 B/row) plus the per-block threshold table (16 KB/block).
-    KMCP_TPU_PALLAS_PAIR=0 disables, =1 forces, =interpret forces the
-    Mosaic interpreter (hermetic CPU parity tests); otherwise it is on
-    for the TPU backend only, alongside KMCP_TPU_PALLAS_COUNT=0 as the
-    global kill switch."""
-    if t_block != 4096:
-        return None
-    if os.environ.get("KMCP_TPU_PALLAS_COUNT", "").lower() in ("0", "off"):
-        return None
-    env = os.environ.get("KMCP_TPU_PALLAS_PAIR", "").lower()
-    if env in ("0", "off"):
-        return None
-    if env == "interpret":
-        return "interpret"
-    s8 = -(-(s_block + 1) // 8)
-    if s8 * 8 * 128 * 4 > (8 << 20) or n_blocks * 16 * 1024 > (4 << 20):
-        return None
-    import jax
-
-    if env == "1" or jax.default_backend() == "tpu":
-        return "pair"
-    return None
-
-
 @functools.lru_cache(maxsize=None)
 def _make_screened_tail(
     cand_budget: int,
@@ -199,9 +90,7 @@ def _make_screened_tail(
     t_block: int,
     s_block: int,
     n_pair_chunks: int,
-    pair_pc=None,
     in_dedup: bool = False,
-    gemm_pc=None,
 ):
     """Two-pass wide-T tail (single-hash): per-block union screen, then a
     dense count of ONLY the active (read, block) pairs.
@@ -225,19 +114,6 @@ def _make_screened_tail(
     any chunk's candidate share reports n_cand = cand_budget + 1 so the
     caller's standard 4x retry (which scales both budgets) kicks in.
 
-    With ``pair_pc`` = (K, interpret) pass 2 runs as the block-stationary
-    Mosaic pair kernel instead (pallas_count.make_pallas_pair_count):
-    pairs sort by block id so each block's bit slab is DMA'd into VMEM
-    at most once per batch, the per-pair count folds VMEM-resident rows
-    through the Harley-Seal counter (no HBM row gather at all), and the
-    thresholds fuse in-kernel into a packed candidate bitmask — the tail
-    then scans P*128 mask words instead of P*4096 count lanes.  The
-    sorted outputs are restored to read-major pair order before the
-    word scan, so candidates still emit in ascending (read, block,
-    target) order and the (meta, aux) layout is byte-identical to the
-    XLA pass 2.  ``bits_ext`` must then be the prepacked per-block slab
-    array from pallas_count.pack_pair_blocks.
-
     With ``in_dedup`` the tail call takes ``vplanes`` = (vhi, vlo)
     [K, B] uint32 window values and reads over the dedup threshold are
     uniqued on device before BOTH passes (_dedup_value_planes over the
@@ -250,27 +126,7 @@ def _make_screened_tail(
     import jax.numpy as jnp
     from jax import lax
 
-    pair_fn = None
-    if pair_pc is not None:
-        from .pallas_count import make_pallas_pair_count, thr_table_pairs
-
-        pp_K, pp_interp = pair_pc
-        pair_fn = make_pallas_pair_count(
-            pp_K, s_block, n_blocks, interpret=pp_interp
-        )
-        assert pair_budget % pair_fn.pairs_per_step == 0, pair_budget
-    gemm_fn = None
-    if gemm_pc is not None:
-        from .pallas_count import make_pallas_group_count
-
-        gm_S_pad, gm_T_t, gm_interp = gemm_pc
-        gemm_fn = make_pallas_group_count(
-            gm_S_pad, n_blocks, t_block, gm_T_t, interpret=gm_interp
-        )
-        gm_P_t = gemm_fn.pairs_per_step
-        # block-sorted groups pad to P_t-multiples; worst case each
-        # block's group wastes < P_t slots
-        gm_P_pad = -(-(pair_budget + n_blocks * gm_P_t) // gm_P_t) * gm_P_t
+    adt = aux_dtype(dedup_threshold)
 
     def pair_chunk(bits_ext, loc_t, nkmers, pb_c, pg_c, pv_c, cmin, tmin2,
                    spos2, budget_c):
@@ -307,13 +163,13 @@ def _make_screened_tail(
                 counts.reshape(-1), jnp.minimum(cidx, P_c * t_block - 1)
             )
             cnt = jnp.where(cidx < P_c * t_block, cnt, 0)
-            return n_c, cidx, jnp.clip(cnt, 0, 65535).astype(jnp.uint16)
+            return n_c, cidx, clip_aux(cnt, adt)
 
         def empty(_):
             return (
                 jnp.int32(0),
                 jnp.full((budget_c,), P_c * t_block, jnp.int32),
-                jnp.zeros((budget_c,), jnp.uint16),
+                jnp.zeros((budget_c,), adt),
             )
 
         return lax.cond(pv_c.any(), heavy, empty, None)
@@ -331,11 +187,7 @@ def _make_screened_tail(
                 dedup_threshold, (s_block, u_ext.shape[0] - 1),
             )
 
-        # ---- pass 1: per-block union-hit counts + screen threshold.
-        # The element gather is the measured-fastest lowering (~13 ns/
-        # element): a 128-byte sector gather + lane select ran ~1.6x
-        # slower across two real-chip sessions, and pre-flattening the
-        # table changed nothing — XLA's squeeze pass persists either way
+        # ---- pass 1: per-block union-hit counts + screen threshold
         urows = jnp.take(u_ext, locu_t, axis=0)  # [K, B, Wu] k-major
         ucnt = _unpack_count(urows)[:, :n_blocks]  # [B, nb]
         theta = jnp.take(
@@ -354,239 +206,6 @@ def _make_screened_tail(
         pidx = jnp.minimum(pairs, B * n_blocks - 1)
         pb = pidx // n_blocks
         pg = pidx % n_blocks
-
-        if gemm_fn is not None:
-            # ---- pass 2: grouped GEMM on the MXU (make_pallas_group_
-            # count).  Pairs sort by block and each block's group pads
-            # to a P_t-multiple so every kernel tile touches one block;
-            # counts come back in the natural target-major layout and
-            # the thresholds + packed-mask word scan run in XLA over
-            # the small [P_pad, t_block] array.
-            W_b = t_block // 32
-            P = pair_budget
-            key = jnp.where(pv, pg, jnp.int32(n_blocks))
-            order = jnp.argsort(key)
-            rank = jnp.argsort(order)
-            pb_s = jnp.take(pb, order)
-            pg_s = jnp.take(key, order)
-            gids = jnp.arange(n_blocks, dtype=jnp.int32)
-            cnt = (pg_s[None, :] == gids[:, None]).sum(
-                axis=1, dtype=jnp.int32
-            )
-            start = jnp.cumsum(cnt) - cnt
-            padded = -(-cnt // gm_P_t) * gm_P_t
-            pbase = jnp.cumsum(padded) - padded
-            gsafe = jnp.minimum(pg_s, n_blocks - 1)
-            slot_s = jnp.where(
-                pg_s < n_blocks,
-                jnp.take(pbase, gsafe)
-                + jnp.arange(P, dtype=jnp.int32)
-                - jnp.take(start, gsafe),
-                jnp.int32(gm_P_pad),  # dropped by the scatters below
-            )
-            pb_pad = (
-                jnp.full((gm_P_pad,), B, jnp.int32)
-                .at[slot_s].set(pb_s, mode="drop")
-            )
-            pg_pad = (
-                jnp.full((gm_P_pad,), n_blocks, jnp.int32)
-                .at[slot_s].set(pg_s, mode="drop")
-            )
-            # groups are tile-aligned, so min over a tile is its block
-            # (padding slots hold n_blocks)
-            blk_tile = pg_pad.reshape(-1, gm_P_t).min(axis=1)
-            u_all = _build_u_digit(loc_t.T, gm_S_pad)
-            valid_pad = pb_pad < B
-            u_p = jnp.where(
-                valid_pad[:, None],
-                jnp.take(u_all, jnp.minimum(pb_pad, B - 1), axis=0),
-                jnp.bfloat16(0),
-            )
-            counts_p = gemm_fn(bits_ext, u_p, blk_tile)
-            c_thresh = jnp.take(
-                cmin, jnp.minimum(nkmers, cmin.shape[0] - 1)
-            )
-            cthr_pad = jnp.where(
-                valid_pad,
-                jnp.take(c_thresh, jnp.minimum(pb_pad, B - 1)),
-                jnp.int32(2**30),
-            )
-            # tile-uniform per-target floors: tiles hold ONE block, so
-            # the [P_pad, t_block] tmin/sizes gathers collapse to one
-            # [n_tiles, t_block] row each (tmin folds sizes_pos via the
-            # thr_table_pairs trick: ~2^30 on absent-target lanes)
-            eff_thr = jnp.where(
-                sizes_pos.reshape(n_blocks, t_block),
-                tmin.reshape(n_blocks, t_block).astype(jnp.int32),
-                jnp.int32(2**30),
-            )
-            eff_ext = jnp.concatenate(
-                [eff_thr, jnp.full((1, t_block), 2**30, jnp.int32)]
-            )
-            n_tiles = gm_P_pad // gm_P_t
-            thr_tile = jnp.take(
-                eff_ext, jnp.minimum(blk_tile, n_blocks), axis=0
-            )  # [n_tiles, t_block]
-            okm = (
-                counts_p.reshape(n_tiles, gm_P_t, t_block)
-                >= jnp.maximum(
-                    thr_tile[:, None, :],
-                    cthr_pad.reshape(n_tiles, gm_P_t)[:, :, None],
-                )
-            )
-            jb = jnp.arange(32, dtype=jnp.uint32)
-            mask_pad = (
-                okm.reshape(gm_P_pad, W_b, 32).astype(jnp.uint32)
-                << jb[None, None, :]
-            ).sum(axis=-1, dtype=jnp.uint32)  # bit j of word l = t l*32+j
-            slot_rm = jnp.take(slot_s, rank)
-            mask_rm = jnp.where(
-                (slot_rm < gm_P_pad)[:, None],
-                jnp.take(
-                    mask_pad, jnp.minimum(slot_rm, gm_P_pad - 1), axis=0
-                ),
-                jnp.uint32(0),
-            )
-            total = lax.population_count(mask_rm).astype(jnp.int32).sum()
-
-            # word-level candidate scan — same ordering contract as the
-            # pair-kernel path (ascending read-major (pair, word, bit))
-            nw_total = P * W_b
-            wid, _nw = _nonzero_asc(
-                (mask_rm != 0).reshape(-1), cand_budget, nw_total
-            )
-            wv = jnp.where(
-                wid < nw_total,
-                jnp.take(
-                    mask_rm.reshape(-1), jnp.minimum(wid, nw_total - 1)
-                ),
-                jnp.uint32(0),
-            )
-            p_rm = jnp.minimum(wid // W_b, P - 1)
-            bset = (wv[:, None] >> jb[None, :]) & jnp.uint32(1)
-            q_w = jnp.take(pb, p_rm)
-            t_w = jnp.take(pg, p_rm) * t_block + (wid % W_b) * 32
-            crow = jnp.minimum(jnp.take(slot_rm, p_rm), gm_P_pad - 1)
-            # 32 scalar gathers per candidate word (~3.4 ms/step at
-            # budget 6144).  Both "faster" forms lower WORSE: a reshape
-            # to [P*W, 32] rows costs a 2.5 ms relayout, and a (1, 32)
-            # sliced lax.gather lowers to a serial while loop (13 ms)
-            cmat = jnp.take(
-                counts_p.reshape(-1),
-                jnp.minimum(
-                    crow[:, None] * t_block
-                    + (wid % W_b)[:, None] * 32
-                    + jnp.arange(32, dtype=jnp.int32)[None, :],
-                    gm_P_pad * t_block - 1,
-                ),
-            )
-            cidx2, _n2 = _nonzero_asc(
-                (bset != 0).reshape(-1), cand_budget, cand_budget * 32
-            )
-            v2 = cidx2 < cand_budget * 32
-            c2 = jnp.minimum(cidx2, cand_budget * 32 - 1)
-            out_q = jnp.where(v2, jnp.take(q_w, c2 // 32), jnp.int32(B))
-            out_t = jnp.where(
-                v2, jnp.take(t_w, c2 // 32) + c2 % 32, jnp.int32(0)
-            )
-            out_cnt = jnp.where(v2, jnp.take(cmat.reshape(-1), c2), 0)
-            n_rep = jnp.where(
-                (total > cand_budget) | (n_pairs > pair_budget),
-                jnp.int32(cand_budget) + jnp.int32(1),
-                total,
-            )
-            meta = jnp.concatenate([n_rep[None], out_q, out_t])
-            aux = jnp.concatenate(
-                [
-                    jnp.clip(out_cnt, 0, 65535).astype(jnp.uint16),
-                    jnp.clip(nkmers, 0, 65535).astype(jnp.uint16),
-                ]
-            )
-            return meta, aux
-
-        if pair_fn is not None:
-            # ---- pass 2: block-stationary Mosaic pair kernel
-            W_b = t_block // 32  # 128 (asserted by pack_pair_blocks)
-            P = pair_budget
-            # sort pairs by block id (padding last) so the kernel re-DMAs
-            # a block slab at most n_blocks+1 times per batch
-            key = jnp.where(pv, pg, jnp.int32(n_blocks))
-            order = jnp.argsort(key)
-            rank = jnp.argsort(order)  # read-major pair -> sorted slot
-            pb_s = jnp.take(pb, order)
-            pg_s = jnp.take(key, order)
-            locp = jnp.take(loc_t, pb_s, axis=1).T  # [P, K] block rows
-            c_thresh = jnp.take(
-                cmin, jnp.minimum(nkmers, cmin.shape[0] - 1)
-            )
-            # per-read floor; ~2^30 on padding pairs zeroes their mask
-            cthr_p = jnp.where(
-                pg_s < n_blocks,
-                jnp.take(c_thresh, pb_s),
-                jnp.int32(2**30),
-            )
-            tab = jnp.concatenate(
-                [locp, pg_s[:, None], cthr_p[:, None]], axis=1
-            ).astype(jnp.int32)
-            thr = thr_table_pairs(tmin, sizes_pos, n_blocks)
-            counts_s, mask_s = pair_fn(bits_ext, tab, thr)
-            mask_rm = jnp.take(mask_s, rank, axis=0)  # read-major pairs
-            total = lax.population_count(mask_rm).astype(jnp.int32).sum()
-
-            # word-level candidate scan (a nonzero word holds >=1
-            # candidate, so nonzero words > budget implies total >
-            # budget and the retry fires before any word is dropped)
-            nw_total = P * W_b
-            wid, _nw = _nonzero_asc(
-                (mask_rm != 0).reshape(-1), cand_budget, nw_total
-            )
-            wv = jnp.where(
-                wid < nw_total,
-                jnp.take(
-                    mask_rm.reshape(-1), jnp.minimum(wid, nw_total - 1)
-                ),
-                jnp.uint32(0),
-            )
-            p_rm = jnp.minimum(wid // W_b, P - 1)
-            jbits = jnp.arange(32, dtype=jnp.uint32)
-            bset = (wv[:, None] >> jbits[None, :]) & jnp.uint32(1)
-            q_w = jnp.take(pb, p_rm)  # [budget] read id per word slot
-            t_w = jnp.take(pg, p_rm) * t_block + (wid % W_b) * 32
-            # per-candidate counts gather from the kernel's sorted-order
-            # counts array: pair row rank[p], lane j*128 + word
-            crow = jnp.take(rank, p_rm)
-            cmat = jnp.take(
-                counts_s.reshape(-1),
-                jnp.minimum(
-                    crow[:, None] * (32 * W_b)
-                    + jnp.arange(32, dtype=jnp.int32)[None, :] * W_b
-                    + (wid % W_b)[:, None],
-                    P * 32 * W_b - 1,
-                ),
-            )
-            cidx2, _n2 = _nonzero_asc(
-                (bset != 0).reshape(-1), cand_budget, cand_budget * 32
-            )
-            v2 = cidx2 < cand_budget * 32
-            c2 = jnp.minimum(cidx2, cand_budget * 32 - 1)
-            out_q = jnp.where(v2, jnp.take(q_w, c2 // 32), jnp.int32(B))
-            out_t = jnp.where(
-                v2, jnp.take(t_w, c2 // 32) + c2 % 32, jnp.int32(0)
-            )
-            out_cnt = jnp.where(v2, jnp.take(cmat.reshape(-1), c2), 0)
-            n_rep = jnp.where(
-                (total > cand_budget) | (n_pairs > pair_budget),
-                jnp.int32(cand_budget) + jnp.int32(1),
-                total,
-            )
-            meta = jnp.concatenate([n_rep[None], out_q, out_t])
-            aux = jnp.concatenate(
-                [
-                    jnp.clip(out_cnt, 0, 65535).astype(jnp.uint16),
-                    jnp.clip(nkmers, 0, 65535).astype(jnp.uint16),
-                ]
-            )
-            return meta, aux
 
         # ---- pass 2: dense count of active pairs only (chunked)
         C = n_pair_chunks
@@ -639,7 +258,7 @@ def _make_screened_tail(
             .at[po].set(t_g.reshape(-1), mode="drop")
         )
         out_cnt = (
-            jnp.zeros((cand_budget,), jnp.uint16)
+            jnp.zeros((cand_budget,), adt)
             .at[po].set(cnt_c.reshape(-1), mode="drop")
         )
         n_rep = jnp.where(
@@ -647,9 +266,7 @@ def _make_screened_tail(
             total.astype(jnp.int32),
         )
         meta = jnp.concatenate([n_rep[None], out_q, out_t])
-        aux = jnp.concatenate(
-            [out_cnt, jnp.clip(nkmers, 0, 65535).astype(jnp.uint16)]
-        )
+        aux = jnp.concatenate([out_cnt, clip_aux(nkmers, adt)])
         return meta, aux
 
     return jax.jit(tail)
@@ -677,8 +294,7 @@ def _make_screened_step_sharded(
     of T, like the dense sharded step.
 
     Inputs are host-computed location planes (loc/loc_u [B, K] int32,
-    sentinels = the respective moduli), so the step also runs on CPU
-    meshes where the Mosaic hash kernel cannot.  Output: the legacy
+    sentinels = the respective moduli).  Output: the legacy
     packed int32 array [1 + C + C + B] (idx ascending by global flat
     index — byte-identical to the single-device paths whenever no
     budget overflows)."""

@@ -3,9 +3,10 @@
 Sketch queries previously fell back off the jax backend: selection
 streamed only through the host C++ deque path
 (/root/reference/kmcp/cmd/util-db-search.go:1050-1106 is the
-reference's in-engine sketch branch).  The Pallas hash kernel already
-emits each window's canonical 64-bit value as (hi, lo) uint32 planes
-(for paired dedup), so selection becomes pure XLA over [K, B] planes:
+reference's in-engine sketch branch).  The device hash
+(device_hash.py) emits each window's canonical 64-bit value as (hi, lo)
+uint32 planes (for paired dedup), so selection becomes pure XLA over
+[K, B] planes:
 
 - minimizer: lexicographic (value, position) sliding-window minimum by
   log-doubling span composition; a position is selected when ANY
@@ -88,7 +89,7 @@ def _window_lexmin(vh, vl, w: int):
 
 
 def _mask_invalid(vhi, vlo):
-    """(hi, lo) with the kernel's (0, 0) invalid encoding remapped to
+    """(hi, lo) with the hash's (0, 0) invalid encoding remapped to
     u64::MAX, plus the invalid mask itself."""
     import jax.numpy as jnp
 

@@ -18,9 +18,8 @@ as a weak-scaling experiment sized for this 4-core box:
     DB, the 2-proc run a 131k-target DB sharded over mesh axis 't'
     (per-host sub-database ownership, the reference's cluster story at
     /root/reference/kmcp/cmd/merge.go:333-367);
-  * collectives ride Gloo over loopback TCP — strictly worse transport
-    than a TPU pod's ICI, so the measured efficiency is a conservative
-    floor for the HLO-model claim (docs/PERF.md, 99.6%).
+  * collectives ride Gloo over loopback TCP, a slower transport than
+    a device interconnect.
 
 Efficiency := step_time(1 proc) / step_time(2 procs)  (ideal = 1.0).
 

@@ -1,8 +1,8 @@
-"""CLI-level byte-parity + e2e rate of the dense masked path: stream
-the 131k-target wide DB (db-wide) through the FULL jax streaming
-pipeline (Pallas hash -> masked count kernel -> word compaction ->
-TSV) vs the host backend.  The strongest end-to-end proof of the
-round-3 kernels: every row of the TSV must match bit-for-bit."""
+"""CLI-level byte-parity + e2e rate of the dense path: stream the
+131k-target single-block wide DB (db-wide) through the FULL jax
+streaming pipeline (device hash -> chunked dense count tail ->
+compaction -> TSV) vs the host backend; every row of the TSV must
+match bit-for-bit."""
 import io
 import os
 import sys

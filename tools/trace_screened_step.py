@@ -1,7 +1,9 @@
-"""Capture a jax.profiler device trace of the screened step and print
-the per-op time breakdown (the round-5 cost-model methodology —
-docs/PERF.md round-5 table).  KMCP_TPU_GEMM_PAIR=0|1 picks the pass-2
-mode; the trace lands under /tmp/kmcp_trace.
+"""Capture a jax.profiler device trace of the screened step on the
+131k-target DB (.bench/large_t-131072, tools/bench_large_t.py) and print
+the per-op device time breakdown.  The trace lands under
+.bench/trace/ of the checkout.
+
+    PROBE_B=16384 python tools/trace_screened_step.py
 """
 
 import collections
@@ -40,15 +42,13 @@ def main():
     codes, nmask = native.pack_rows_2bit(seqs, lens, lmax)
     mat = (jax.device_put(codes), jax.device_put(nmask))
     lent = jax.device_put(lens.astype(np.int32))
-    m, a = dev.search_reads_pallas(mat, lent, B + B // 2, packed2=True)
+    m, a = dev.search_reads(mat, lent, 2 * B, packed2=True)
     jax.block_until_ready((m, a))
-    trace_dir = "/tmp/kmcp_trace"
+    trace_dir = os.path.join(root, os.pardir, "trace")
     with jax.profiler.trace(trace_dir):
         for _ in range(3):
-            m, a = dev.search_reads_pallas(
-                mat, lent, B + B // 2, packed2=True
-            )
-        np.asarray(m[:1])
+            m, a = dev.search_reads(mat, lent, 2 * B, packed2=True)
+        jax.block_until_ready((m, a))
 
     f = sorted(glob.glob(
         os.path.join(trace_dir, "plugins/profile/*/*.trace.json.gz")
@@ -58,8 +58,13 @@ def main():
         e["pid"]
         for e in d["traceEvents"]
         if e.get("ph") == "M" and e.get("name") == "process_name"
-        and "TPU" in e["args"].get("name", "")
+        and "GPU" in e["args"].get("name", "")
     }
+    if not pids:
+        names = [e["args"].get("name") for e in d["traceEvents"]
+                 if e.get("ph") == "M" and e.get("name") == "process_name"]
+        print(f"no GPU process in the trace; processes: {names}",
+              file=sys.stderr)
     by = collections.defaultdict(float)
     src = {}
     for e in d["traceEvents"]:
